@@ -1,9 +1,8 @@
 """Hardware A/B: multi-resolution indirect (cfg.indirect_split).
 
-Measures the tracked interactive rows (mid-scale 32k and Sponza-scale
-248k triangles, 1080p 1spp, max_bounces=8 + RR@2 + adaptive alpha,
+Measures the interactive rows (32k or 248k triangles, 1080p 1spp, max_bounces=8 + RR@2 + adaptive alpha,
 orbiting camera) with the multi-res split off vs several (split, stride)
-points. Run on the TPU:
+points. Run on a GPU:
 
     python -m benchmarks.multires_ab [--tris 32768] [--frames 3]
 
@@ -39,17 +38,17 @@ def main():
         help="use the recommended-quality temporal config (variance-"
         "guided + accumulation ramp + adaptive alpha) instead of plain "
         "adaptive alpha -- the config under which jitter recovers the "
-        "full-res quality bar (STATUS.md)",
+        "full-res quality bar",
     )
     args = parser.parse_args()
 
     import jax
 
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
     )
 

@@ -1,6 +1,6 @@
 """Denoising quality benchmark: rMSE vs a high-spp converged reference.
 
-BASELINE.md's second tracked metric. A ground-truth image is accumulated
+The repo's denoising-quality metric. A ground-truth image is accumulated
 from many independent 1-spp frames (distinct frame seeds), then the
 denoiser's steady-state output is compared against it alongside the raw
 1-spp input, reporting the improvement factor.
@@ -28,7 +28,7 @@ def ground_truth(tri_data, camera, light, cfg, total_spp: int):
     import jax
     import jax.numpy as jnp
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         pathtrace,
     )
 
@@ -101,13 +101,13 @@ def run(
     the temporal-gradient lambda exists to bound. ``path_gradient`` swaps
     in the A-SVGF path-space gradient (ops/pathgrad.py) on top of the
     reference's Phong proxy."""
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
         Light,
         precompute_triangle_data,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import (
         rmse,
     )
 
@@ -174,7 +174,7 @@ def run(
 
     # raw 1-spp noise level for the improvement factor
     import jax.numpy as jnp
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         pathtrace,
     )
 
@@ -287,7 +287,7 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
     if args.multires_sweep:
-        # VERDICT r4 item 2: the shipped (split, stride) points, measured
+        # the shipped (split, stride) points, measured
         # against the same full-res truth in one process. Rows at the
         # default bounce cap isolate the split's bias next to the
         # variance-guided bar; the final rows are the production

@@ -1,9 +1,10 @@
-"""Benchmark suite: the five tracked configs from BASELINE.md.
+"""Benchmark suite: the tracked configs, ms/frame on one GPU.
 
 Run: python -m benchmarks.suite [--quick] [--only SUBSTR]
 Prints one JSON line per config plus a human-readable table on stderr.
+Refuses to run without a GPU.
 
-Configs (BASELINE.json "configs"):
+Configs:
   1. Cornell, static camera, 1spp 512x512, spatial a-trous only
   2. Cornell, static camera, full SVGF (temporal + a-trous), no gradients
   3. Cornell, orbiting camera, full A-SVGF w/ adaptive alpha, 1080p 1spp
@@ -20,42 +21,36 @@ import sys
 import time
 
 
-def _sync(x):
-    import numpy as np
-
-    np.asarray(x[0, 0])
-
-
 def bench_renderer(make_renderer, frames, mutate=None):
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf  # noqa: F401
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf  # noqa: F401
 
     r = make_renderer()
-    _sync(r.step())  # compile + warm
-    _sync(r.step())
+    r.step().block_until_ready()  # compile + warm
+    r.step().block_until_ready()
     t0 = time.perf_counter()
     rgb = None
     for i in range(frames):
         if mutate is not None:
             mutate(r, i)
         rgb = r.step()
-    _sync(rgb)
+    rgb.block_until_ready()
     return (time.perf_counter() - t0) / frames * 1000.0
 
 
 def suite_entries(quick: bool):
     """The tracked configs as (name, thunk) pairs; each thunk measures and
     returns ms/frame. Lazy so a --only filter skips scene prep entirely."""
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
     )
 
     frames = 5 if quick else 20
-    # VERDICT r4: the bar-clearing interactive rows need a steady-state
-    # measurement, not a 2-frame sample -- 10 timed frames after 2 warm.
+    # the interactive rows need a steady-state measurement, not a 2-frame
+    # sample -- 10 timed frames after 2 warm
     interactive_frames = frames if quick else 10
     # the 32-bounce parity stress rows run at seconds/frame; 3 frames keeps
     # the wall-clock sane while still averaging over dispatch jitter
@@ -93,7 +88,6 @@ def suite_entries(quick: bool):
     entries.append(("cornell_512_spatial_only", run(cornell, cfg1, frames)))
 
     # 2. full SVGF 512x512: temporal EMA + variance-guided a-trous
-    # (BASELINE config 2 names the variance guidance explicitly)
     cfg2 = ptsf.RenderConfig(width=512, height=512, variance_guided=True)
     entries.append(("cornell_512_full_svgf", run(cornell, cfg2, frames)))
 
@@ -148,11 +142,10 @@ def suite_entries(quick: bool):
         ("cornell_1080p_asvgf_orbit", run(cornell, cfg3, frames, orbit))
     )
 
-    # 4. Sponza-class traversal stress (BASELINE config 4): ~250k tris,
-    # moving camera, 1080p 1spp through the wavefront tracer. --quick keeps
-    # a small stand-in (the full scene costs seconds/frame; see
-    # benchmarks/scaling.py for the full curve).
-    splits = 2 if quick else 88  # 128 or 247,808 triangles
+    # 4. large-scene stress: 32,768 tris, moving camera, 1080p 1spp,
+    # 32 bounces. --quick keeps a small stand-in (see benchmarks/scaling.py
+    # for the curve over scene sizes).
+    splits = 2 if quick else 32  # 128 or 32,768 triangles
     big = lambda: subdiv(splits)  # noqa: E731
     cfg4 = ptsf.RenderConfig(width=1920, height=1080)
     entries.append(
@@ -164,8 +157,7 @@ def suite_entries(quick: bool):
 
     # 4b. (extra, non-parity) the large-scene stress with RR@4: on a
     # closed box every parity path runs all 32 segments; RR bounds the
-    # expected path length, which is where the wavefront tracer's
-    # per-segment cost goes
+    # expected path length
     cfg4rr = dataclasses.replace(cfg4, rr_start_bounce=4)
     entries.append(
         (
@@ -174,96 +166,37 @@ def suite_entries(quick: bool):
         )
     )
 
-    # 4c. (extra, non-parity) tracked MID-SCALE INTERACTIVE config: 32,768
-    # tris at 1080p with the interactive levers on -- max_bounces=8 (past
-    # visual convergence for diffuse boxes: energy after 8 bounces ~ 0.7^8
-    # ~ 6%), Russian roulette from bounce 2 (unbiased), adaptive alpha.
-    # The closed box is the worst case (no path ever escapes); open scenes
-    # terminate earlier. Parity mode keeps 32 bounces (config 4).
-    mid_splits = 2 if quick else 32  # 128 or 32,768 triangles
-    mid = lambda: subdiv(mid_splits)  # noqa: E731
+    # 4c. (extra, non-parity) interactive config at the same scale:
+    # max_bounces=8 (past visual convergence for diffuse boxes: energy
+    # after 8 bounces ~ 0.7^8 ~ 6%), Russian roulette from bounce 2
+    # (unbiased), adaptive alpha. The closed box is the worst case (no
+    # path ever escapes).
     cfg4i = ptsf.RenderConfig(
         width=1920, height=1080, max_bounces=8, rr_start_bounce=2,
         adaptive_alpha=True,
     )
     entries.append(
         (
-            f"cornell_subdiv{mid_splits}_{32 * mid_splits * mid_splits}tris_1080p_interactive_nonparity",
-            run(mid, cfg4i, interactive_frames, orbit),
+            f"cornell_subdiv{splits}_{32 * splits * splits}tris_1080p_interactive_nonparity",
+            run(big, cfg4i, interactive_frames, orbit),
         )
     )
 
-    # 4c'. (extra, non-parity) 4c + the round-4 estimator levers: multi-res
-    # indirect (split@1, stride 4) + G-buffer-seeded primaries -- the
-    # full-res trace launches no traversal kernel; only the 1/16 coarse
-    # tail traverses. THE tracked row for the <=150 ms mid-scale
-    # interactive target (BASELINE.md).
-    if not quick:  # split + G-buffer seed need an HBM-streamed scene
-        cfg4ig = dataclasses.replace(
-            cfg4i, indirect_split=1, indirect_stride=4, gbuffer_primary=True
-        )
-        entries.append(
-            (
-                f"cornell_subdiv{mid_splits}_{32 * mid_splits * mid_splits}tris_1080p_interactive_multires_gprimary_nonparity",
-                run(mid, cfg4ig, interactive_frames, orbit),
-            )
-        )
-
-    # 4c''. (extra, non-parity) the RECOMMENDED-QUALITY interactive
-    # config (round 5): 4c' + variance-guided + accumulation ramp +
-    # grid-phase jitter -- full quality (rMSE 0.1677 static AND orbit,
-    # vs 0.1547 full-res static bar; STATUS.md) measured at 149.3 ms on
-    # introduction.
-    if not quick:
-        cfg4iq = dataclasses.replace(
-            cfg4ig, indirect_jitter=True, variance_guided=True,
-            accumulation_ramp=True, ramp_reset_mode="normal",
-        )
-        entries.append(
-            (
-                f"cornell_subdiv{mid_splits}_{32 * mid_splits * mid_splits}tris_1080p_interactive_recommended_nonparity",
-                run(mid, cfg4iq, interactive_frames, orbit),
-            )
-        )
-
-    # 4d. (extra, non-parity) the SPONZA-SCALE interactive config: the
-    # 247,808-tri stress scene with the same interactive levers as 4c
-    # (max_bounces=8, RR@2, adaptive alpha) -- the scale row the <1 s
-    # target tracks alongside the 32-bounce parity row 4
-    cfg4si = dataclasses.replace(cfg4i)
+    # 4c'. (extra, non-parity) 4c + multi-res indirect (split@1, stride
+    # 4) + G-buffer-seeded primaries, variance guidance, accumulation ramp
+    # and grid-phase jitter: the recommended-quality interactive config.
+    # These modes are traced by the XLA route.
+    cfg4iq = dataclasses.replace(
+        cfg4i, indirect_split=1, indirect_stride=4, gbuffer_primary=True,
+        indirect_jitter=True, variance_guided=True,
+        accumulation_ramp=True, ramp_reset_mode="normal",
+    )
     entries.append(
         (
-            f"cornell_subdiv{splits}_{32 * splits * splits}tris_1080p_interactive_nonparity",
-            run(big, cfg4si, interactive_frames, orbit),
+            f"cornell_subdiv{splits}_{32 * splits * splits}tris_1080p_interactive_recommended_nonparity",
+            run(big, cfg4iq, interactive_frames, orbit),
         )
     )
-
-    # 4d'. (extra, non-parity) Sponza-scale + multi-res indirect +
-    # G-buffer primaries: the <1 s/frame-at-scale row
-    if not quick:  # split + G-buffer seed need an HBM-streamed scene
-        cfg4sig = dataclasses.replace(
-            cfg4si, indirect_split=1, indirect_stride=4, gbuffer_primary=True
-        )
-        entries.append(
-            (
-                f"cornell_subdiv{splits}_{32 * splits * splits}tris_1080p_interactive_multires_gprimary_nonparity",
-                run(big, cfg4sig, interactive_frames, orbit),
-            )
-        )
-
-    # 4d''. (extra, non-parity) Sponza-scale recommended-quality config
-    # (397.4 ms on introduction)
-    if not quick:
-        cfg4sq = dataclasses.replace(
-            cfg4sig, indirect_jitter=True, variance_guided=True,
-            accumulation_ramp=True, ramp_reset_mode="normal",
-        )
-        entries.append(
-            (
-                f"cornell_subdiv{splits}_{32 * splits * splits}tris_1080p_interactive_recommended_nonparity",
-                run(big, cfg4sq, interactive_frames, orbit),
-            )
-        )
 
     # 5. dynamic light + camera cuts, 4spp, gradient-driven rejection
     cfg5 = ptsf.RenderConfig(
@@ -303,34 +236,36 @@ def main():
         "--only", default=None, metavar="SUBSTR",
         help="run only config names containing SUBSTR",
     )
-    parser.add_argument(
-        "--cpu", action="store_true", help="force the CPU backend"
-    )
     args = parser.parse_args()
 
     import jax
 
-    if args.cpu:
-        # before any package import (module-scope jnp constants would
-        # initialize the default backend)
-        jax.config.update("jax_platforms", "cpu")
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print("suite: no GPU; refusing to run", file=sys.stderr)
+        return 1
+    from real_time_path_tracing_with_spatiotemporal_filtering.utils.device import (
+        enable_compile_cache,
+    )
 
-    platform = jax.devices()[0].platform
+    enable_compile_cache()
     results = run_suite(args.quick, args.only)
     for name, ms in results:
         print(
             json.dumps(
                 {
-                    "metric": f"ms/frame, {name}, single {platform} chip",
-                    "value": round(ms, 3),
+                    "metric": f"ms/frame, {name}, one GPU",
+                    "value": ms,
                     "unit": "ms/frame",
+                    "device_kind": dev.device_kind,
                 }
             )
         )
     print("\nconfig                                   ms/frame", file=sys.stderr)
     for name, ms in results:
         print(f"{name:42s} {ms:8.2f}", file=sys.stderr)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

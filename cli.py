@@ -1,7 +1,7 @@
 """Command-line renderer: the headless counterpart of the reference app.
 
 The reference's only interface is a GLFW window with WASD/IJKL keys
-(main.cpp:1119-1168); on a headless TPU host the equivalent surface is a
+(main.cpp:1119-1168); on a headless GPU host the equivalent surface is a
 frame-sequence renderer with scripted camera/light motion and PNG output.
 
 Examples:
@@ -60,7 +60,7 @@ def main() -> None:
                         help="multi-resolution indirect: trace bounces "
                         ">= this index on a subsampled grid and upsample "
                         "with G-buffer guidance (non-parity; 0 = off; "
-                        "needs a streamed scene or --cpu)")
+                        "traced by the XLA route)")
     parser.add_argument("--indirect-stride", type=int, default=2,
                         help="coarse-grid stride of --indirect-split "
                         "(2 -> 1/4 of the indirect rays)")
@@ -73,9 +73,7 @@ def main() -> None:
     parser.add_argument("--gbuffer-primary", action="store_true",
                         help="seed bounce 0 from the G-buffer instead of "
                         "re-tracing it (non-parity: disables primary AA "
-                        "jitter; deletes the full-res bounce-0 traversal "
-                        "on streamed scenes; needs a streamed scene or "
-                        "--cpu)")
+                        "jitter; traced by the XLA route)")
     parser.add_argument("--ramp-reset-mode", choices=("id", "normal"),
                         default="id",
                         help="ramp history-rejection test: exact primitive "
@@ -121,10 +119,15 @@ def main() -> None:
 
     import numpy as np
 
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import (
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+    from real_time_path_tracing_with_spatiotemporal_filtering.utils.device import (
+        enable_compile_cache,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import (
         write_png,
     )
+
+    enable_compile_cache()
 
     cfg = ptsf.RenderConfig(
         width=args.width,
@@ -166,7 +169,7 @@ def main() -> None:
         if args.move_camera:
             renderer.move_camera(*args.move_camera)
         if args.orbit_camera:
-            from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+            from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
                 Camera,
             )
 

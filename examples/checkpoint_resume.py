@@ -11,7 +11,7 @@ import tempfile
 
 import numpy as np
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
 
 cfg = ptsf.RenderConfig(width=320, height=240, max_bounces=8)
 scene = ptsf.Scene.cornell_box()

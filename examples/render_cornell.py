@@ -11,8 +11,8 @@ import sys
 
 import numpy as np
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import (
     write_png,
 )
 

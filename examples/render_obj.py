@@ -1,9 +1,9 @@
 """Render any OBJ scene (the reference hardcodes its scene path,
 main.cpp:417; here it is an argument).
 
-Large scenes route automatically through the HBM-streamed wavefront
-tracer; add --rr to bound path lengths (unbiased Russian roulette,
-non-parity).
+Any scene size renders (the trace kernel loops over every triangle, the
+XLA route scans triangle blocks); add --rr to bound path lengths
+(unbiased Russian roulette, non-parity).
 
 Run:  python examples/render_obj.py scene.obj [out.png] [--rr]
 """
@@ -12,8 +12,8 @@ import sys
 
 import numpy as np
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import (
     write_png,
 )
 

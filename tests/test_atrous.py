@@ -5,10 +5,10 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import atrous
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import atrous
 
 
 def numpy_atrous_oracle(color, normal, depth, k, sigma_n, sigma_z, sigma_l):
@@ -157,71 +157,3 @@ def test_temporal_accumulate_at_blend_math():
     np.testing.assert_allclose(
         np.asarray(out_g)[3, 3], [0.3 + 0.7, 0.3, 0.3], rtol=1e-6
     )
-
-
-def test_temporal_blend_pallas_matches_xla():
-    """The windowed-reprojection blend kernel must match temporal_accumulate_at
-    across all three routes: identity map, small deltas (windowed kernel),
-    and beyond-window deltas (XLA gather fallback)."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
-        RenderConfig,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
-        atrous as atrous_x,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        atrous as atrous_pl,
-    )
-
-    rng = np.random.default_rng(5)
-    h, w = 16, 256
-    for adaptive in (False, True):
-        cfg = RenderConfig(width=w, height=h, adaptive_alpha=adaptive)
-        filtered = jnp.asarray(rng.random((h, w, 3), dtype=np.float32))
-        prev = jnp.asarray(rng.random((h, w, 3), dtype=np.float32))
-        lam = jnp.asarray(rng.random((h, w), dtype=np.float32))
-        own_y = jnp.broadcast_to(
-            jnp.arange(h, dtype=jnp.int32)[:, None], (h, w)
-        )
-        own_x = jnp.broadcast_to(
-            jnp.arange(w, dtype=jnp.int32)[None, :], (h, w)
-        )
-        small_dy = jnp.asarray(
-            rng.integers(-atrous_pl.REPROJ_DY, atrous_pl.REPROJ_DY + 1, (h, w)),
-            jnp.int32,
-        )
-        small_dx = jnp.asarray(
-            rng.integers(-atrous_pl.REPROJ_DX, atrous_pl.REPROJ_DX + 1, (h, w)),
-            jnp.int32,
-        )
-        big_dx = jnp.where(own_x < w // 2, 40, 0).astype(jnp.int32)
-        cases = [
-            ("aligned", own_y, own_x),
-            (
-                "small",
-                jnp.clip(own_y + small_dy, 0, h - 1),
-                jnp.clip(own_x + small_dx, 0, w - 1),
-            ),
-            ("big", own_y, jnp.clip(own_x + big_dx, 0, w - 1)),
-        ]
-        for name, py, px in cases:
-            for frame in (0, 3):
-                ref = np.asarray(
-                    atrous_x.temporal_accumulate_at(
-                        filtered, prev, py, px, jnp.int32(frame), lam, cfg
-                    )
-                )
-                got = np.asarray(
-                    atrous_pl.temporal_blend_pallas(
-                        filtered, prev, py, px, jnp.int32(frame), lam, cfg,
-                        interpret=True,
-                    )
-                )
-                np.testing.assert_allclose(
-                    ref, got, rtol=1e-6, atol=1e-6,
-                    err_msg=f"{name} adaptive={adaptive} frame={frame}",
-                )

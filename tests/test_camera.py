@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import camera
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import camera
 
 
 def test_center_pixel_ray_points_forward():

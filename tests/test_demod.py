@@ -12,14 +12,14 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import atrous
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import atrous
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -64,60 +64,11 @@ def test_demod_roundtrip(rng_np):
     np.testing.assert_allclose(out, np.asarray(c), rtol=1e-6)
 
 
-def test_geometry_albedo_planes_match_lut(cornell_tri_data):
-    """The dense Pallas geometry kernel's emit_albedo planes == the XLA
-    LUT image of its own visibility plane."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        geometry as geo_mod,
-    )
-
-    cam, light = Camera.default(), Light.default()
-    view, proj = frame_mod.camera_matrices(cam, CFG)
-    geo = geo_mod.geometry_pass_pallas(
-        cornell_tri_data, cornell_tri_data.lut, cam.position,
-        light.position, light.position, light.color, light.color,
-        view, proj, view, proj, CFG, interpret=True, emit_albedo=True,
-    )
-    assert geo.albedo is not None
-    ref = np.asarray(atrous.albedo_image(cornell_tri_data, geo.visibility))
-    np.testing.assert_allclose(np.asarray(geo.albedo), ref, atol=1e-6)
-
-
-def test_clustered_geometry_albedo_planes(rng_np):
-    """The clustered/streamed geometry kernel commits the same albedo as
-    the LUT image (fused select path, table cols 15:18)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        geometry as geo_mod,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
-        Scene,
-        precompute_triangle_data,
-    )
-
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(12))
-    )
-    assert getattr(td, "geo_static", None) is not None  # clustered route
-    cfg = dataclasses.replace(CFG, width=128, height=32)
-    cam, light = Camera.default(), Light.default()
-    view, proj = frame_mod.camera_matrices(cam, cfg)
-    geo = geo_mod.geometry_pass_pallas(
-        td, td.lut, cam.position,
-        light.position, light.position, light.color, light.color,
-        view, proj, view, proj, cfg, interpret=True, emit_albedo=True,
-    )
-    ref = np.asarray(atrous.albedo_image(td, geo.visibility))
-    np.testing.assert_allclose(np.asarray(geo.albedo), ref, atol=1e-6)
-
-
 def test_demod_frame_xla_vs_pallas(cornell_tri_data):
-    """Full demodulated frames agree across backends (same tolerance as
-    the parity-mode frame test)."""
+    """Full demodulated frames agree across trace routes (same tolerance
+    as the parity-mode frame test)."""
     cfg_x = dataclasses.replace(CFG, backend="xla")
-    cfg_p = dataclasses.replace(CFG, backend="pallas")
+    cfg_p = dataclasses.replace(CFG, backend="pallas", pallas_interpret=True)
     cam, light = Camera.default(), Light.default()
     hist_x = frame_mod.init_history(cornell_tri_data, cfg_x)
     hist_p = frame_mod.init_history(cornell_tri_data, cfg_p)

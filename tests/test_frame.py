@@ -6,20 +6,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import frame as frame_mod
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline.renderer import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import frame as frame_mod
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline.renderer import (
     Renderer,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     Scene,
     precompute_triangle_data,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import rmse
+from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import rmse
 
 CFG = RenderConfig(width=48, height=32, max_bounces=6, wavelet_iterations=3)
 
@@ -144,10 +144,10 @@ def test_checkpoint_shape_mismatch_rejected(tmp_path):
 
     import pytest
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline.renderer import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.pipeline.renderer import (
         Renderer,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Scene,
     )
 

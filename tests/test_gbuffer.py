@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import gbuffer
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline.frame import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import gbuffer
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline.frame import (
     camera_matrices,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
 )
 

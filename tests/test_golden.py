@@ -12,14 +12,14 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import pathtrace
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import pathtrace
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     Scene,
@@ -58,7 +58,7 @@ def test_full_frame_matches_golden(cornell_tri_data):
 def test_variance_guided_frame_matches_golden(cornell_tri_data):
     """Pins the variance-guided SVGF extension (moment accumulation,
     variance-normalized w_l, variance propagation through the a-trous
-    iterations) -- the path BASELINE's north star names explicitly."""
+    iterations)."""
     import dataclasses
 
     cfg = dataclasses.replace(CFG, variance_guided=True)

@@ -1,9 +1,14 @@
-"""Ray/triangle and ray/sphere intersection vs NumPy oracles."""
+"""Ray/triangle and ray/sphere intersection vs NumPy oracles, and the
+triangle-block scan of the dense intersector."""
 
+import functools
+
+import jax
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import intersect
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import intersect
 
 
 def moller_trumbore_oracle(o, d, tri):
@@ -137,3 +142,76 @@ def test_ray_sphere_matches_reference_semantics():
         jnp.array([[0.0, 0.0, 2.0]]), jnp.array([[0.0, 0.0, -2.0]]), center, r
     )
     assert bool(hit[0]) and abs(float(t[0]) - 0.75) < 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_planes(splits):
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
+        procedural,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
+        Scene,
+        precompute_triangle_data,
+    )
+
+    scene = (
+        Scene.cornell_box() if splits == 0
+        else Scene.from_arrays(*procedural.subdivided_cornell(splits))
+    )
+    return precompute_triangle_data(scene).planes
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.0, 2.0, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return jnp.asarray(o), jnp.asarray(d)
+
+
+_nearest = jax.jit(intersect.nearest_hit, static_argnames=("block",))
+
+
+@pytest.mark.parametrize("splits", [0, 4])
+@pytest.mark.parametrize("block", ["1", "7", "T", "T+5"])
+def test_tiled_nearest_hit_matches_untiled(splits, block):
+    """Scanning triangle blocks gives exactly the single-block record."""
+    planes = _scene_planes(splits)
+    t = planes.n.shape[0]
+    b = {"1": 1, "7": 7, "T": t, "T+5": t + 5}[block]
+    o, d = _rays(400, splits)
+    ref = _nearest(planes, o, d, block=t)
+    got = _nearest(planes, o, d, block=b)
+    assert int(np.asarray(ref.hit).sum()) > 50
+    for name, x, y in zip(ref._fields, got, ref):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), name)
+
+
+@pytest.mark.parametrize("block", [1, 2, 3])
+def test_tiled_nearest_hit_keeps_first_index_on_ties(block):
+    """Duplicated triangles tie exactly; like argmin, the lowest index wins,
+    also when the twins fall into different blocks."""
+    tri = np.array(
+        [[[-1.0, -1.0, -2.0], [1.0, -1.0, -2.0], [0.0, 1.0, -2.0]]],
+        np.float32,
+    )
+    far = tri + np.array([0.0, 0.0, -3.0], np.float32)
+    tris = np.concatenate([far, tri, tri, far], axis=0)  # twins at 1, 2
+    planes = intersect.build_triangle_planes(jnp.asarray(tris))
+    o = jnp.zeros((4, 3), jnp.float32)
+    d = jnp.asarray(np.tile([[0.0, 0.0, -1.0]], (4, 1)), jnp.float32)
+    rec = _nearest(planes, o, d, block=block)
+    np.testing.assert_array_equal(np.asarray(rec.prim), [1, 1, 1, 1])
+    np.testing.assert_allclose(np.asarray(rec.t), 2.0)
+
+
+def test_triangle_block_budget():
+    budget = intersect.PLANE_BYTES_BUDGET
+    # the headline frame: one block holds the 32-triangle Cornell box
+    assert intersect.triangle_block(1920 * 1080, 32) == 32
+    # a 32,768-triangle scene at 1080p is scanned in budget-sized blocks
+    b = intersect.triangle_block(1920 * 1080, 32768)
+    assert 1 <= b < 32768 and 1920 * 1080 * b * 4 <= budget
+    # never below one triangle, never above the scene
+    assert intersect.triangle_block(10**9, 5) == 1
+    assert intersect.triangle_block(10, 5) == 5

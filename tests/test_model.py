@@ -16,15 +16,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
     atrous,
     gbuffer,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     transform_triangle_data,
@@ -149,7 +149,7 @@ def test_rotating_box_temporal_accumulation(backend):
     same accumulation with a frozen history LUT -- which is what dropping
     modelPrev would mean (measured on this config: tracked 0.178 vs
     frozen 0.277 vs spatial-only 0.175 rMSE)."""
-    cfg = dataclasses.replace(CFG, backend=backend)
+    cfg = dataclasses.replace(CFG, backend=backend, pallas_interpret=True)
     scene = ptsf.Scene.cornell_box()
     td = ptsf.precompute_triangle_data(scene)
     center = [0.0, 1.0, 0.0]
@@ -170,7 +170,7 @@ def test_rotating_box_temporal_accumulation(backend):
         td, _center_rot_y(step * n_frames, center)
     )
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         pathtrace,
     )
 

@@ -14,18 +14,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
     multires,
     pathtrace,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     Scene,
@@ -104,7 +104,7 @@ def test_multires_stride1_matches_full_trace(cornell_td):
         CFG, indirect_split=2, indirect_stride=1, max_bounces=6
     )
     cam, light = Camera.default(), Light.default()
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         gbuffer,
     )
 
@@ -134,7 +134,7 @@ def test_multires_coarse_pixels_exact(cornell_td):
         CFG, indirect_split=2, indirect_stride=2, max_bounces=6
     )
     cam, light = Camera.default(), Light.default()
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         gbuffer,
     )
 
@@ -203,7 +203,7 @@ def test_jittered_coarse_pixels_exact(cornell_td):
         max_bounces=6,
     )
     cam, light = Camera.default(), Light.default()
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         gbuffer,
     )
 
@@ -322,57 +322,3 @@ def test_multires_frame_xla(cornell_td):
         rgb, hist = frame_mod.render_frame(cornell_td, cam, light, hist, cfg)
     assert np.isfinite(np.asarray(rgb)).all()
     assert np.asarray(rgb).max() > 0
-
-
-def test_wavefront_multires_matches_xla():
-    """The wavefront multi-res estimate (interpret mode) matches the XLA
-    formulation on a clustered scene -- both traces and the combine are
-    the same math (wavefront==XLA trace parity is 1-ulp, test_pallas)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
-        gbuffer,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-
-    cfg = RenderConfig(
-        width=48, height=32, max_bounces=4, wavelet_iterations=3,
-        indirect_split=1, indirect_stride=2,
-    )
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(6))
-    )
-    assert td.cluster_aabbs is not None
-    cam, light = Camera.default(), Light.default()
-    view, proj = frame_mod.camera_matrices(cam, cfg)
-    gbuf = gbuffer.visibility_pass(
-        td, cam.position, view, proj, cfg, rotation=cam.rotation
-    )
-    normal_img = td.lut_normals[gbuf.visibility.astype(jnp.int32)]
-    ref = np.asarray(
-        multires.multires_noisy_xla(
-            td, cam.position, light, jnp.int32(2), cfg,
-            normal_img, gbuf.depth, rotation=cam.rotation,
-        )
-    )
-    wf = multires.multires_noisy_wavefront(
-        td, cam.position, light, jnp.int32(2), cfg,
-        (normal_img[..., 0], normal_img[..., 1], normal_img[..., 2]),
-        gbuf.depth, rotation=cam.rotation, interpret=True,
-    )
-    wf = np.stack([np.asarray(p) for p in wf], axis=-1)
-    np.testing.assert_allclose(ref, wf, rtol=0, atol=1e-5)
-
-
-def test_megakernel_rejects_truncate_radiance(cornell_td):
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        pathtrace as pt_mod,
-    )
-
-    cfg = dataclasses.replace(CFG, truncate_radiance=True)
-    cam, light = Camera.default(), Light.default()
-    with pytest.raises(ValueError, match="truncate_radiance"):
-        pt_mod.path_trace_pass_pallas(
-            cornell_td, cam.position, light, jnp.int32(0), cfg,
-            interpret=True,
-        )

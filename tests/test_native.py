@@ -6,8 +6,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.native import loader
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.native import loader
+from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
     obj as obj_mod,
     procedural,
 )

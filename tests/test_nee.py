@@ -5,7 +5,7 @@ cross the sphere (raytrace.comp.glsl:226-235). nee=True samples the light's
 solid-angle cone explicitly at every diffuse hit with a shadow ray, banks
 tp * L * cos * Omega/pi, silently terminates deeper sphere crossings (the
 sphere stays a blocker), and drops the loop fall-through quirk. Pinned
-here: estimator agreement across XLA/megakernel/wavefront, unbiasedness
+here: estimator agreement between the XLA trace and the kernel, unbiasedness
 vs the occlusion-aware implicit estimator, and shadowing semantics.
 """
 
@@ -14,14 +14,14 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import pathtrace
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas.pathtrace import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import pathtrace
+from real_time_path_tracing_with_spatiotemporal_filtering.ops.pallas.pathtrace import (
     path_trace_pass_pallas,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -39,8 +39,8 @@ def _xla(tri_data, cfg, frame=2):
 
 
 def test_nee_pallas_matches_xla(cornell_tri_data):
-    """Megakernel (incl. the in-register compaction path: TILE_W=512 and
-    max_bounces=8 turn it on) vs the XLA oracle, NEE enabled."""
+    """The per-pixel trace kernel (Pallas interpreter) vs the XLA oracle,
+    NEE enabled (its shadow rays run a second triangle loop)."""
     cam, light = Camera.default(), Light.default()
     ref = _xla(cornell_tri_data, CFG)
     pal = np.asarray(
@@ -50,37 +50,6 @@ def test_nee_pallas_matches_xla(cornell_tri_data):
         )
     )
     assert np.abs(ref - pal).max() < 2e-4
-
-
-def test_nee_wavefront_matches_megakernel():
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas.wavefront import (
-        path_trace_wavefront,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
-        Scene,
-        precompute_triangle_data,
-    )
-
-    cfg = dataclasses.replace(CFG, width=48, height=32, max_bounces=6)
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(6))
-    )
-    cam, light = Camera.default(), Light.default()
-    mega = np.asarray(
-        path_trace_pass_pallas(
-            td, cam.position, light, jnp.int32(2), cfg, interpret=True,
-            stream_tables=True,
-        )
-    )
-    wf = np.asarray(
-        path_trace_wavefront(
-            td, cam.position, light, jnp.int32(2), cfg, interpret=True
-        )
-    )
-    np.testing.assert_allclose(mega, wf, rtol=0, atol=1e-5)
 
 
 def test_nee_with_rr_pallas_matches_xla(cornell_tri_data):

@@ -16,20 +16,20 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
     atrous,
     gbuffer,
     pathgrad,
     pathtrace,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -66,7 +66,7 @@ def test_trace_pixels_matches_full_frame_subset():
     relies on."""
     cfg = dataclasses.replace(CFG, adaptive_alpha=False, path_gradient=False)
     scene = ptsf.Scene.cornell_box()
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         precompute_triangle_data,
     )
 
@@ -195,14 +195,14 @@ def test_gradient_zero_on_frame_zero(cornell_tri_data):
 
 
 def test_frame_smoke_and_xla_pallas_parity():
-    """The full frame runs with path_gradient on both backends and the
-    path-space lambda drives the same blend: XLA vs Pallas(interpret)
-    outputs match to kernel tolerance."""
+    """The full frame runs with path_gradient on both trace routes and the
+    path-space lambda drives the same blend: XLA vs the trace kernel (in
+    the Pallas interpreter) match to kernel tolerance."""
     scene = ptsf.Scene.cornell_box()
     light0 = Light.default()
     outs = {}
     for backend in ("xla", "pallas"):
-        cfg = dataclasses.replace(CFG, backend=backend)
+        cfg = dataclasses.replace(CFG, backend=backend, pallas_interpret=True)
         r = ptsf.Renderer(scene, cfg)
         r.step()
         r.light = dataclasses.replace(
@@ -217,70 +217,29 @@ def test_frame_smoke_and_xla_pallas_parity():
     np.testing.assert_allclose(outs["xla"], outs["pallas"], atol=2e-5)
 
 
-def _streamed_tri_data():
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        pathtrace as pt_mod,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+def _large_tri_data():
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         precompute_triangle_data,
     )
 
-    td = precompute_triangle_data(
+    return precompute_triangle_data(
         ptsf.Scene.from_arrays(*procedural.subdivided_cornell(12))
-    )
-    assert pt_mod.trace_needs_streaming(td)  # the route under test
-    return td
-
-
-def test_trace_pixels_wavefront_matches_full_and_dense():
-    """The wavefront explicit-pixel twin is bitwise identical to the same
-    pixels of a full-frame wavefront trace (the property the streamed
-    gradient re-trace relies on) and matches the dense XLA tracer to
-    kernel tolerance."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        wavefront as wf_mod,
-    )
-
-    cfg = dataclasses.replace(
-        CFG, adaptive_alpha=False, path_gradient=False, max_bounces=3
-    )
-    td = _streamed_tri_data()
-    cam, light = Camera.default(), Light.default()
-    full = wf_mod.path_trace_wavefront(
-        td, cam.position, light, 3, cfg, interpret=True,
-        rotation=cam.rotation,
-    )
-    rng = np.random.default_rng(0)
-    py = jnp.asarray(rng.integers(0, cfg.height, (5, 7)), jnp.int32)
-    px = jnp.asarray(rng.integers(0, cfg.width, (5, 7)), jnp.int32)
-    sub = wf_mod.trace_pixels_wavefront(
-        td, cam.position, light, 3, px, py, cfg, interpret=True,
-        rotation=cam.rotation,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(sub), np.asarray(full)[np.asarray(py), np.asarray(px)]
-    )
-    dense = pathtrace.trace_pixels(
-        td, jnp.asarray(cam.position), light, jnp.int32(3), px, py, cfg,
-        rotation=jnp.asarray(cam.rotation),
-    )
-    np.testing.assert_allclose(
-        np.asarray(sub), np.asarray(dense), rtol=0, atol=1e-6
     )
 
 
 def test_frame_path_gradient_streamed_scene():
-    """A beyond-SMEM scene keeps the FULL path-space gradient: the stratum
-    re-trace routes through the wavefront tracer instead of warning and
-    falling back to the Phong-only lambda (round-2 behavior)."""
+    """A 4608-triangle scene keeps the FULL path-space gradient on the
+    kernel route (noisy trace by the kernel, stratum re-trace by the XLA
+    tracer) without warning or falling back to the Phong-only lambda."""
     import warnings
 
-    td = _streamed_tri_data()
+    td = _large_tri_data()
     cfg = dataclasses.replace(
-        CFG, backend="pallas", max_bounces=3, wavelet_iterations=3
+        CFG, backend="pallas", pallas_interpret=True, max_bounces=3,
+        wavelet_iterations=3,
     )
     light0 = Light.default()
 
@@ -306,7 +265,7 @@ def test_frame_path_gradient_streamed_scene():
     assert np.isfinite(with_pg).all()
     assert hist.noisy_lum is not None
     without_pg, _ = run(False)
-    # the gradient signal must actually reach the blend on streamed scenes
+    # the gradient signal must actually reach the blend on large scenes
     assert np.abs(with_pg - without_pg).max() > 1e-4
 
 

@@ -5,8 +5,8 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import pathtrace
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import pathtrace
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Light,
     Camera,
 )

@@ -15,19 +15,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
     atrous,
     gbuffer,
     multires,
     pathtrace,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     Scene,
@@ -43,34 +43,14 @@ def cornell_td():
 
 
 @pytest.fixture(scope="module")
-def streamed_td():
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+def large_td():
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
 
-    td = precompute_triangle_data(
+    return precompute_triangle_data(
         Scene.from_arrays(*procedural.subdivided_cornell(6))
     )
-    assert td.cluster_aabbs is not None
-    return td
-
-
-@pytest.fixture(scope="module")
-def frame_streamed_td():
-    # big enough that the frame router actually streams
-    # (trace_needs_streaming)
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        pathtrace as pt_mod,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(8))
-    )
-    assert pt_mod.trace_needs_streaming(td)
-    return td
 
 
 def _primary_from_gbuf(td, gbuf):
@@ -210,177 +190,29 @@ def test_xla_primary_with_nee(cornell_td):
     )
 
 
-def test_wavefront_primary_with_nee(streamed_td):
-    """nee + gbuffer_primary on the wavefront path: the bounce-0 NEE
-    shadow rays run as the dedicated occlusion-only segment
-    (_shadow_kernel) and the result matches the full wavefront nee trace
-    at aa_sigma=0 (whose bounce-0 shadow walk runs inside the segment-0
-    kernel)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        wavefront as wf_mod,
-    )
-
-    cfg = RenderConfig(
-        width=48, height=32, max_bounces=4, wavelet_iterations=3, nee=True,
-    )
-    cam, light = Camera.default(), Light.default()
-    gbuf = _gbuf(streamed_td, cam, cfg)
-    normal_img = streamed_td.lut_normals[gbuf.visibility.astype(jnp.int32)]
-    alb = atrous.albedo_image(streamed_td, gbuf.visibility)
-    prim_flat = tuple(
-        p.reshape(-1)
-        for p in (
-            gbuf.visibility,
-            gbuf.world_pos[..., 0], gbuf.world_pos[..., 1],
-            gbuf.world_pos[..., 2],
-            normal_img[..., 0], normal_img[..., 1], normal_img[..., 2],
-            alb[..., 0], alb[..., 1], alb[..., 2],
-        )
-    )
-    seeded = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(2),
-        dataclasses.replace(cfg, gbuffer_primary=True),
-        interpret=True, rotation=cam.rotation, primary_from=prim_flat,
-    )
-    full = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(2),
-        dataclasses.replace(cfg, aa_sigma=0.0),
-        interpret=True, rotation=cam.rotation,
-    )
-    # rtol term: NEE radiance is continuous in the hit position -- see
-    # test_xla_primary_with_nee
-    np.testing.assert_allclose(
-        np.asarray(seeded), np.asarray(full), rtol=5e-5, atol=1e-5
-    )
-    # the composition must actually carry direct light: the nee estimate
-    # differs materially from the non-nee seeded trace
-    plain = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(2),
-        dataclasses.replace(cfg, gbuffer_primary=True, nee=False),
-        interpret=True, rotation=cam.rotation, primary_from=prim_flat,
-    )
-    assert np.abs(np.asarray(seeded) - np.asarray(plain)).max() > 1e-3
-
-
-def test_wavefront_primary_equals_sigma0(streamed_td):
-    """Wavefront twin of the contract on an HBM-streamed scene (interpret
-    mode): XLA prologue + segments [1, N) matches the full wavefront trace
-    at aa_sigma=0. Same tolerance as the wavefront==XLA parity suite
-    (1-ulp position differences, test_pallas)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        wavefront as wf_mod,
-    )
-
-    cfg = RenderConfig(
-        width=48, height=32, max_bounces=4, wavelet_iterations=3
-    )
-    cam, light = Camera.default(), Light.default()
-    gbuf = _gbuf(streamed_td, cam, cfg)
-    normal_img = streamed_td.lut_normals[gbuf.visibility.astype(jnp.int32)]
-    alb = atrous.albedo_image(streamed_td, gbuf.visibility)
-    prim_flat = tuple(
-        p.reshape(-1)
-        for p in (
-            gbuf.visibility,
-            gbuf.world_pos[..., 0], gbuf.world_pos[..., 1],
-            gbuf.world_pos[..., 2],
-            normal_img[..., 0], normal_img[..., 1], normal_img[..., 2],
-            alb[..., 0], alb[..., 1], alb[..., 2],
-        )
-    )
-    seeded = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(2),
-        dataclasses.replace(cfg, gbuffer_primary=True),
-        interpret=True, rotation=cam.rotation, primary_from=prim_flat,
-    )
-    full = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(2),
-        dataclasses.replace(cfg, aa_sigma=0.0),
-        interpret=True, rotation=cam.rotation,
-    )
-    np.testing.assert_allclose(
-        np.asarray(seeded), np.asarray(full), rtol=0, atol=1e-5
-    )
-
-
-def test_wavefront_primary_split1_no_kernel(streamed_td):
-    """indirect_split=1 + gbuffer_primary: the truncated full-res trace
-    launches NO traversal kernel (max_bounces=1, start segment 1) and its
-    radiance/throughput come straight from the XLA prologue. Verified
-    against the dense oracle's truncated trace at aa_sigma=0."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        wavefront as wf_mod,
-    )
-
-    cfg = RenderConfig(
-        width=48, height=32, max_bounces=1, truncate_radiance=True,
-        wavelet_iterations=3, gbuffer_primary=True,
-    )
-    cam, light = Camera.default(), Light.default()
-    gbuf = _gbuf(streamed_td, cam, cfg)
-    normal_img = streamed_td.lut_normals[gbuf.visibility.astype(jnp.int32)]
-    alb = atrous.albedo_image(streamed_td, gbuf.visibility)
-    prim_flat = tuple(
-        p.reshape(-1)
-        for p in (
-            gbuf.visibility,
-            gbuf.world_pos[..., 0], gbuf.world_pos[..., 1],
-            gbuf.world_pos[..., 2],
-            normal_img[..., 0], normal_img[..., 1], normal_img[..., 2],
-            alb[..., 0], alb[..., 1], alb[..., 2],
-        )
-    )
-    trunc, thru = wf_mod.path_trace_wavefront(
-        streamed_td, cam.position, light, jnp.int32(4), cfg,
-        interpret=True, rotation=cam.rotation, primary_from=prim_flat,
-        emit_throughput=True,
-    )
-    ref_t, ref_thru = pathtrace.path_trace_pass(
-        streamed_td, cam.position, light, jnp.int32(4),
-        dataclasses.replace(cfg, aa_sigma=0.0, gbuffer_primary=False),
-        rotation=cam.rotation, emit_throughput=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(trunc), np.asarray(ref_t), rtol=0, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(thru), np.asarray(ref_thru), rtol=0, atol=1e-5
-    )
-
-
-def test_multires_primary_matches_sigma0(streamed_td):
-    """The full multi-res wavefront estimate with G-buffer seeding equals
-    the same estimate at aa_sigma=0 without it."""
+def test_multires_primary_matches_sigma0(large_td):
+    """The full multi-res estimate with G-buffer seeding equals the same
+    estimate at aa_sigma=0 without it."""
     cfg = RenderConfig(
         width=48, height=32, max_bounces=4, wavelet_iterations=3,
         indirect_split=1, indirect_stride=2,
     )
     cam, light = Camera.default(), Light.default()
-    gbuf = _gbuf(streamed_td, cam, cfg)
-    normal_img = streamed_td.lut_normals[gbuf.visibility.astype(jnp.int32)]
-    alb = atrous.albedo_image(streamed_td, gbuf.visibility)
-    prim = (
-        (gbuf.visibility,)
-        + tuple(gbuf.world_pos[..., i] for i in range(3))
-        + tuple(normal_img[..., i] for i in range(3))
-        + tuple(alb[..., i] for i in range(3))
-    )
-    normal_pl = tuple(normal_img[..., i] for i in range(3))
-    seeded = multires.multires_noisy_wavefront(
-        streamed_td, cam.position, light, jnp.int32(6),
+    gbuf = _gbuf(large_td, cam, cfg)
+    normal_img = large_td.lut_normals[gbuf.visibility.astype(jnp.int32)]
+    seeded = multires.multires_noisy_xla(
+        large_td, cam.position, light, jnp.int32(6),
         dataclasses.replace(cfg, gbuffer_primary=True),
-        normal_pl, gbuf.depth, rotation=cam.rotation, interpret=True,
-        primary=prim,
+        normal_img, gbuf.depth, rotation=cam.rotation,
+        primary=_primary_from_gbuf(large_td, gbuf),
     )
-    full = multires.multires_noisy_wavefront(
-        streamed_td, cam.position, light, jnp.int32(6),
+    full = multires.multires_noisy_xla(
+        large_td, cam.position, light, jnp.int32(6),
         dataclasses.replace(cfg, aa_sigma=0.0),
-        normal_pl, gbuf.depth, rotation=cam.rotation, interpret=True,
+        normal_img, gbuf.depth, rotation=cam.rotation,
     )
     np.testing.assert_allclose(
-        np.stack([np.asarray(p) for p in seeded], -1),
-        np.stack([np.asarray(p) for p in full], -1),
-        rtol=0, atol=1e-5,
+        np.asarray(seeded), np.asarray(full), rtol=0, atol=1e-5
     )
 
 
@@ -407,35 +239,24 @@ def test_frame_xla_primary_equals_sigma0(cornell_td):
     np.testing.assert_array_equal(np.asarray(rgb_p), np.asarray(rgb_0))
 
 
-def test_frame_pallas_streamed_primary(frame_streamed_td):
-    """Full Pallas frame (interpret) on a streamed scene with
-    gbuffer_primary + indirect_split: runs, finite, and close to the
-    aa_sigma=0 frame without the seed."""
-    streamed_td = frame_streamed_td
+def test_frame_pallas_streamed_primary(large_td):
+    """Kernel-route frame on a larger scene with gbuffer_primary +
+    indirect_split: the noisy trace takes the XLA route (the kernel traces
+    neither mode), runs, is finite, and is close to the aa_sigma=0 frame
+    without the seed."""
     cam, light = Camera.default(), Light.default()
     base = RenderConfig(
         width=48, height=32, max_bounces=4, wavelet_iterations=3,
-        backend="pallas", indirect_split=1, indirect_stride=2,
+        backend="pallas", pallas_interpret=True, indirect_split=1,
+        indirect_stride=2,
     )
     cfg_p = dataclasses.replace(base, gbuffer_primary=True)
     cfg_0 = dataclasses.replace(base, aa_sigma=0.0)
-    hist_p = frame_mod.init_history(streamed_td, cfg_p)
-    hist_0 = frame_mod.init_history(streamed_td, cfg_0)
-    rgb_p, _ = frame_mod.render_frame(streamed_td, cam, light, hist_p, cfg_p)
-    rgb_0, _ = frame_mod.render_frame(streamed_td, cam, light, hist_0, cfg_0)
+    hist_p = frame_mod.init_history(large_td, cfg_p)
+    hist_0 = frame_mod.init_history(large_td, cfg_0)
+    rgb_p, _ = frame_mod.render_frame(large_td, cam, light, hist_p, cfg_p)
+    rgb_0, _ = frame_mod.render_frame(large_td, cam, light, hist_0, cfg_0)
     assert np.isfinite(np.asarray(rgb_p)).all()
     np.testing.assert_allclose(
         np.asarray(rgb_p), np.asarray(rgb_0), rtol=0, atol=1e-5
     )
-
-
-def test_frame_smem_scene_rejects(cornell_td):
-    """SMEM-resident scenes on the Pallas backend reject the flag (the
-    megakernel has no bounce-0 segment to delete)."""
-    cam, light = Camera.default(), Light.default()
-    cfg = dataclasses.replace(
-        CFG, backend="pallas", gbuffer_primary=True
-    )
-    hist = frame_mod.init_history(cornell_td, cfg)
-    with pytest.raises(ValueError, match="gbuffer_primary"):
-        frame_mod.render_frame(cornell_td, cam, light, hist, cfg)

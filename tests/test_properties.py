@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
     intersect,
     rng as rng_ops,
     shading,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.barycentric import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops.barycentric import (
     barycentric_coordinates,
 )
 
@@ -88,7 +88,7 @@ def test_faceforward_opposes_incident(n, incident):
 
 
 def test_models_presets_construct():
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu import models
+    from real_time_path_tracing_with_spatiotemporal_filtering import models
 
     r = models.cornell_box_reference(width=32, height=24, max_bounces=3,
                                      wavelet_iterations=3)

@@ -5,20 +5,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import pathtrace
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline.renderer import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import pathtrace
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline.renderer import (
     Renderer,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
     Scene,
     precompute_triangle_data,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.utils.image import rmse
+from real_time_path_tracing_with_spatiotemporal_filtering.utils.image import rmse
 
 CFG = RenderConfig(width=64, height=48, max_bounces=8)
 
@@ -120,10 +120,10 @@ def test_quality_bar_nee():
 
 
 def test_quality_bar_multires_interactive_stack():
-    """The production interactive estimator (the 141.5 ms suite row's
-    levers: multi-res indirect split@1 stride 4 + G-buffer primaries +
+    """The interactive estimator (the suite's interactive row levers:
+    multi-res indirect split@1 stride 4 + G-buffer primaries +
     max_bounces=8 + RR@2). Measured 0.2255 denoised / 1.61x at 128px
-    (512-spp truth, 32 frames, 2026-08-21; full sweep in STATUS.md:
+    (512-spp truth, 32 frames, CPU; full sweep:
     s2x2 0.1785, s2x4 0.2005, s1x4 0.2169, s1x4+gp 0.2170 vs
     variance-guided full-res 0.1547). The bias is real (+46% over the
     full-res bar) and this bar pins it: an upsampler regression FAILS CI

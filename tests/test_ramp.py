@@ -14,8 +14,8 @@ import dataclasses
 
 import numpy as np
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
 
@@ -62,7 +62,7 @@ def test_age_resets_on_light_cut():
 def test_age_survives_camera_orbit():
     """Age follows the reprojection: a small orbit step must NOT zero the
     age field wholesale (ghost-free motion is the ramp's whole point)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
     )
 
@@ -117,89 +117,26 @@ def test_ramp_converges_deeper_than_fixed_alpha():
     assert flut_ramp < 0.6 * flut_fixed, (flut_ramp, flut_fixed)
 
 
-def test_blend_kernel_ramp_parity():
-    """The windowed Pallas blend kernel's ramp path (age/visibility planes
-    through the halo window, per-pixel alpha in-kernel) must match the XLA
-    helpers bit-for-bit on all three routing branches: aligned (static
-    view), windowed (small deltas), XLA-gather fallback (cuts)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
-        atrous,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        atrous as atrous_pl,
-    )
-    import jax.numpy as jnp
-
-    h, w = 32, 128
-    cfg = RenderConfig(
-        width=w, height=h, variance_guided=True, accumulation_ramp=True,
-        adaptive_alpha=True,
-    )
-    rng = np.random.default_rng(7)
-    filtered = jnp.asarray(rng.random((h, w, 3), dtype=np.float32))
-    prev_img = jnp.asarray(rng.random((h, w, 3), dtype=np.float32))
-    prev_age = jnp.asarray(
-        rng.integers(1, 20, (h, w)).astype(np.float32)
-    )
-    prev_vis = jnp.asarray(
-        rng.integers(0, 5, (h, w)).astype(np.float32)
-    )
-    cur_vis = jnp.asarray(rng.integers(0, 5, (h, w)).astype(np.float32))
-    lam = jnp.asarray((rng.random((h, w)) > 0.8).astype(np.float32))
-    oy, ox = np.mgrid[0:h, 0:w]
-    for name, (dy, dx) in {
-        "aligned": (0, 0), "windowed": (2, -3), "cut": (10, 40),
-    }.items():
-        py = jnp.asarray(np.clip(oy + dy, 0, h - 1).astype(np.int32))
-        px = jnp.asarray(np.clip(ox + dx, 0, w - 1).astype(np.int32))
-        out_p, age_p = atrous_pl.temporal_blend_pallas(
-            filtered, prev_img, py, px, jnp.int32(5), lam, cfg,
-            interpret=True, prev_age=prev_age, prev_vis=prev_vis,
-            cur_vis=cur_vis,
-        )
-        age_ref = atrous.accumulate_age(
-            prev_age, py, px, lam, jnp.int32(5), cfg,
-            prev_vis=prev_vis, cur_vis=cur_vis,
-        )
-        out_ref = atrous.temporal_accumulate_at(
-            filtered, prev_img, py, px, jnp.int32(5), lam, cfg, age=age_ref
-        )
-        np.testing.assert_array_equal(
-            np.asarray(age_p), np.asarray(age_ref), err_msg=f"age {name}"
-        )
-        # the blend arithmetic compiles separately in the two paths; XLA's
-        # FMA fusion choices differ by 1 ulp on ~1% of pixels
-        np.testing.assert_allclose(
-            np.asarray(out_p), np.asarray(out_ref), rtol=0, atol=1e-6,
-            err_msg=f"rgb {name}",
-        )
-
-
 def test_pallas_frame_ramp_matches_xla():
-    """Full-frame parity with the ramp enabled on the Pallas backend
-    (interpret on CPU): light motion (gradient resets) + camera orbit
-    (windowed reprojection) must track the XLA frame, age plane included.
-    Tolerance matches test_pallas_frame_matches_xla_frame (the geometry
-    kernel's backprojected coordinates may differ by 1 px on boundary
-    floats)."""
+    """Full-frame parity with the ramp enabled on the kernel route
+    (Pallas interpreter on CPU): light motion (gradient resets) + camera
+    orbit (reprojection) must track the XLA frame, age plane included."""
     import jax.numpy as jnp
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
         frame as frame_mod,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
         Light,
         precompute_triangle_data,
     )
-    import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
+    import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
 
     td = precompute_triangle_data(ptsf.Scene.cornell_box())
-    # width 128 so the windowed blend kernel is actually eligible (slab
-    # width must divide the image width)
     cfg_x = dataclasses.replace(
         CFG, width=128, height=32, backend="xla", adaptive_alpha=True
     )
-    cfg_p = dataclasses.replace(cfg_x, backend="pallas")
+    cfg_p = dataclasses.replace(cfg_x, backend="pallas", pallas_interpret=True)
     light = Light.default()
     hist_x = frame_mod.init_history(td, cfg_x)
     hist_p = frame_mod.init_history(td, cfg_p)
@@ -240,7 +177,7 @@ def test_normal_class_keys():
     share a key; perpendicular surfaces differ; background keys to 0."""
     import jax.numpy as jnp
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         atrous,
     )
 
@@ -269,10 +206,10 @@ def test_normal_reset_mode_keeps_history_on_tessellated_orbit():
     backprojection on a different sub-triangle of the same flat wall, so
     exact-id consistency resets history every frame and accumulation
     dies. The quantized-normal test keeps it."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
     )
 
@@ -310,14 +247,14 @@ def test_normal_reset_sharded_matches_single_chip(cornell_tri_data):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.parallel import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.parallel import (
         frame_sharded,
         sharding,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
         frame as frame_mod,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
         Light,
     )

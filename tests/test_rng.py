@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import rng
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import rng
 
 
 def glsl_pcg_oracle(state: int) -> tuple[int, float]:

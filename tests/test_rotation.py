@@ -5,14 +5,14 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import camera as cam_ops
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import camera as cam_ops
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -63,7 +63,7 @@ def test_frame_with_identity_rotation_matches_old_path(cornell_tri_data):
 
 def test_orbit_renders_the_box(cornell_tri_data):
     """A quarter-orbit camera still sees the box (hits > 60% of pixels)."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import gbuffer
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import gbuffer
 
     cam = Camera.orbit(center=[0.0, 1.0, 0.0], radius=6.0, azimuth=0.6, height=1.0)
     view, proj = frame_mod.camera_matrices(cam, CFG)
@@ -88,7 +88,7 @@ def test_orbit_full_frame_temporal(cornell_tri_data):
 
 
 def test_pallas_rotation_matches_xla(cornell_tri_data):
-    cfgp = dataclasses.replace(CFG, backend="pallas")
+    cfgp = dataclasses.replace(CFG, backend="pallas", pallas_interpret=True)
     cfgx = dataclasses.replace(CFG, backend="xla")
     light = Light.default()
     cam = Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.3, 1.2)

@@ -5,7 +5,7 @@ The reference always traces all max_bounces segments
 termination: from bounce rr_start_bounce on, a bounced path survives with
 p = clamp(max(throughput), rr_min_prob, rr_max_prob) and survivors divide
 their throughput by p (unbiased). Pinned here: exact no-op when gated off
-or out of range, XLA/Pallas/wavefront agreement, and unbiasedness.
+or out of range, XLA/kernel agreement, and unbiasedness.
 """
 
 import dataclasses
@@ -13,14 +13,14 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import pathtrace
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas.pathtrace import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import pathtrace
+from real_time_path_tracing_with_spatiotemporal_filtering.ops.pallas.pathtrace import (
     path_trace_pass_pallas,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -68,39 +68,6 @@ def test_rr_pallas_matches_xla(cornell_tri_data):
     # same tolerance as the parity test without RR (hit-position
     # formulation differs ~1e-6; RR draws share the PCG stream)
     assert np.abs(ref - pal).max() < 1e-4
-
-
-def test_rr_wavefront_matches_megakernel():
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas.wavefront import (
-        path_trace_wavefront,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
-        Scene,
-        precompute_triangle_data,
-    )
-
-    cfg = dataclasses.replace(
-        CFG, width=48, height=32, max_bounces=6, rr_start_bounce=2
-    )
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(6))
-    )
-    cam, light = Camera.default(), Light.default()
-    mega = np.asarray(
-        path_trace_pass_pallas(
-            td, cam.position, light, jnp.int32(2), cfg, interpret=True,
-            stream_tables=True,
-        )
-    )
-    wf = np.asarray(
-        path_trace_wavefront(
-            td, cam.position, light, jnp.int32(2), cfg, interpret=True
-        )
-    )
-    np.testing.assert_allclose(mega, wf, rtol=0, atol=1e-6)
 
 
 def test_rr_is_unbiased_in_the_mean(cornell_tri_data):

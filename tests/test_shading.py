@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import shading
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.barycentric import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import shading
+from real_time_path_tracing_with_spatiotemporal_filtering.ops.barycentric import (
     barycentric_coordinates,
 )
 

@@ -14,18 +14,18 @@ from jax.sharding import PartitionSpec as P
 
 import pytest
 
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+from real_time_path_tracing_with_spatiotemporal_filtering.config import (
     RenderConfig,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import atrous
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.parallel import (
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import atrous
+from real_time_path_tracing_with_spatiotemporal_filtering.parallel import (
     frame_sharded,
     sharding,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
     frame as frame_mod,
 )
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
     Camera,
     Light,
 )
@@ -135,53 +135,6 @@ def test_mesh_validation():
 
 
 @requires_8
-def test_sharded_streaming_scene_routes_to_wavefront(rng_np):
-    """A beyond-SMEM clustered scene must take the same wavefront route on
-    the sharded path as single-chip (the resident megakernel's VMEM table
-    would exceed the cap that pallas_scene_supported waives for streamed
-    scenes) and match the single-chip Pallas frame."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        pathtrace as pt_mod,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
-        procedural,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
-        Scene,
-        precompute_triangle_data,
-    )
-
-    cfg = RenderConfig(
-        width=128, height=64, max_bounces=3, wavelet_iterations=3,
-        backend="pallas",
-    )
-    td = precompute_triangle_data(
-        Scene.from_arrays(*procedural.subdivided_cornell(12))
-    )
-    assert pt_mod.trace_needs_streaming(td)  # the route under test
-
-    mesh = sharding.make_mesh(8)
-    sharded = frame_sharded.make_sharded_frame(cfg, mesh)
-    hist_s = frame_sharded.init_sharded_history(td, cfg, mesh)
-    hist_ref = frame_mod.init_history(td, cfg)
-    cam, light = Camera.default(), Light.default()
-    for _ in range(2):
-        rgb_s, hist_s = sharded(td, cam, light, hist_s)
-        rgb_ref, hist_ref = frame_mod.render_frame_impl(
-            td, cam, light, hist_ref, cfg
-        )
-    # Not bit-equal by design: each shard sorts ITS rays, so clusters are
-    # tested in a different order than the global sort, and a ray hitting
-    # exactly on a shared edge between triangles in DIFFERENT clusters can
-    # break its exact-t tie toward the other twin (same t, same plane --
-    # measure-zero pixels on tessellated geometry, bounded here).
-    a, b = np.asarray(rgb_s), np.asarray(rgb_ref)
-    assert np.isfinite(a).all()
-    mismatched = (np.abs(a - b) > 1e-6 + 1e-5 * np.abs(b)).any(axis=-1)
-    assert mismatched.mean() <= 5e-4, f"{mismatched.sum()} pixels differ"
-
-
-@requires_8
 def test_sharded_frame_nee_rr_matches_single_chip(cornell_tri_data):
     """The estimator extensions (NEE shadow rays + Russian roulette) are
     per-pixel against the replicated scene tables: row sharding must stay
@@ -256,7 +209,7 @@ def test_sharded_frame_orbit_then_cut(cornell_tri_data):
     """An orbiting camera's history gathers resolve through the bounded
     halo window; a hard camera cut exceeds it and takes the all-gather
     fallback. Both must match the single-chip frame exactly."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         gbuffer,
     )
 
@@ -389,7 +342,7 @@ def test_sharded_path_gradient_stratum_validation():
 
 @requires_8
 def test_comm_ledger_steady_state_vs_cut(cornell_tri_data):
-    """ICI byte accounting (sharding.CommLedger): steady-state frames move
+    """Collective byte accounting (sharding.CommLedger): steady-state frames move
     ZERO all-gather bytes (every history gather rides the bounded halo
     window), a camera cut moves exactly the fallback amount, and the halo
     traffic matches the trace-time static count frame for frame."""
@@ -418,8 +371,8 @@ def test_comm_ledger_steady_state_vs_cut(cornell_tri_data):
 
 @requires_8
 def test_comm_ledger_1080p_ratio(cornell_tri_data):
-    """The '~100x less steady-state ICI traffic' claim for the windowed
-    reprojection (docs/DESIGN_ROUND3.md section 4), checked against the
+    """The '~100x less steady-state traffic' claim for the windowed
+    reprojection (sharding.reproject_rows_sharded), checked against the
     collectives actually traced at the headline config (1080p over 8
     chips, full A-SVGF) instead of modeled: the all-gather fallback the
     window replaces moves >= 50x more bytes per frame than the window."""
@@ -493,30 +446,27 @@ def test_sharded_frame_multires_gprimary_interactive_stack(cornell_tri_data):
 
 @requires_8
 def test_sharded_frame_multires_streamed(rng_np):
-    """Multi-res indirect on a beyond-SMEM scene takes the sharded
-    wavefront route (truncated full-res trace + sharded coarse tail) and
-    matches the single-chip Pallas frame within the same bounded
-    measure-zero tie-break budget as the plain streamed test."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        pathtrace as pt_mod,
-    )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene import (
+    """Multi-res indirect on a 4608-triangle scene, kernel route selected:
+    the trace takes the XLA route on both frames (the kernel does not
+    trace the split) and the sharded frame (truncated full-res trace +
+    sharded coarse tail) matches the single-chip one within a bounded
+    measure-zero tie-break budget."""
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene import (
         procedural,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Scene,
         precompute_triangle_data,
     )
 
     cfg = RenderConfig(
         width=128, height=64, max_bounces=3, wavelet_iterations=3,
-        backend="pallas", indirect_split=1, indirect_stride=2,
-        gbuffer_primary=True,
+        backend="pallas", pallas_interpret=True, indirect_split=1,
+        indirect_stride=2, gbuffer_primary=True,
     )
     td = precompute_triangle_data(
         Scene.from_arrays(*procedural.subdivided_cornell(12))
     )
-    assert pt_mod.trace_needs_streaming(td)  # the route under test
 
     mesh = sharding.make_mesh(8)
     sharded = frame_sharded.make_sharded_frame(cfg, mesh)
@@ -548,7 +498,7 @@ def test_sharded_frame_multires_jitter(cornell_tri_data):
     previous device's last coarse row; edge clamp on device 0), so the
     jittered sharded estimate matches single-chip across frames with
     varying phases."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         multires,
     )
 

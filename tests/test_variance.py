@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import real_time_path_tracing_with_spatiotemporal_filtering_tpu as ptsf
-from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import atrous
+import real_time_path_tracing_with_spatiotemporal_filtering as ptsf
+from real_time_path_tracing_with_spatiotemporal_filtering.ops import atrous
 
 
 CFG = ptsf.RenderConfig(width=64, height=48, variance_guided=True)
@@ -103,37 +103,14 @@ def test_parity_mode_bit_unchanged():
     np.testing.assert_array_equal(a, b)
 
 
-def test_xla_vs_pallas_variance_filter():
-    """The Pallas variance-guided filter matches the XLA formulation."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops.pallas import (
-        atrous as atrous_pl,
-    )
-
-    rng = np.random.default_rng(11)
-    cfg = ptsf.RenderConfig(width=128, height=32, variance_guided=True)
-    h, w = cfg.height, cfg.width
-    color = jnp.asarray(rng.random((h, w, 3), dtype=np.float32))
-    var = jnp.asarray(rng.random((h, w), dtype=np.float32) * 0.1)
-    normal = jnp.asarray(rng.standard_normal((h, w, 3)).astype(np.float32))
-    normal = normal / jnp.linalg.norm(normal, axis=-1, keepdims=True)
-    depth = jnp.asarray(rng.random((h, w), dtype=np.float32))
-
-    ref_c, ref_v = atrous.atrous_filter_var(color, var, normal, depth, cfg)
-    pal_c, pal_v = atrous_pl.atrous_filter_var_pallas(
-        color, var, normal, depth, cfg, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref_c), np.asarray(pal_c), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref_v), np.asarray(pal_v), rtol=2e-4, atol=2e-6
-    )
-
-
 def test_xla_vs_pallas_variance_frame():
-    """Whole-frame parity between backends with variance guiding on."""
+    """Whole-frame parity between the XLA and kernel trace routes with
+    variance guiding on."""
     xla, _ = _render(CFG, frames=3, backend="xla")
-    pal, _ = _render(CFG, frames=3, backend="pallas")
+    pal, _ = _render(
+        dataclasses.replace(CFG, pallas_interpret=True), frames=3,
+        backend="pallas",
+    )
     assert np.abs(xla - pal).max() < 2e-3
 
 
@@ -143,10 +120,10 @@ def test_variance_guided_denoises_noise():
     cfg = dataclasses.replace(CFG, ema_alpha=1.0)  # isolate the filter
     r = ptsf.Renderer(ptsf.Scene.cornell_box(), cfg)
     out = np.asarray(r.render(2))
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.ops import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.ops import (
         pathtrace,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
         frame as frame_mod,
     )
 
@@ -172,13 +149,13 @@ def test_sharded_variance_matches_single_chip():
         pytest.skip("needs multi-device mesh")
     from jax.sharding import Mesh
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.parallel import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.parallel import (
         frame_sharded,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.pipeline import (
         frame as frame_mod,
     )
-    from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    from real_time_path_tracing_with_spatiotemporal_filtering.scene.scene import (
         Camera,
         Light,
         precompute_triangle_data,
